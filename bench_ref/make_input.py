@@ -1,6 +1,6 @@
-"""Write the exact R-MAT A our TPU bench multiplies, as binary triples for
+"""Write the exact R-MAT A an earlier version of the bench multiplied, as binary triples for
 the reference-kernel baseline harness (ref_local_spgemm.cpp).  Runs on CPU so
-the TPU stays free."""
+the device stays free."""
 import struct
 import sys
 

@@ -1,6 +1,6 @@
 // Baseline harness: times the REFERENCE CombBLAS local SpGEMM kernel
 // (LocalHybridSpGEMM, mtSpGEMM.h:214 — the per-process hot loop of its
-// distributed SUMMA) on this host, on the exact matrix our TPU bench
+// distributed SUMMA) on this host, on the exact matrix an earlier version of our bench
 // multiplies.  Compiled against /root/reference headers (read-only) with the
 // single-process MPI stub in mpi_stub/.  This is measurement glue, not part
 // of the combblas_tpu framework.

@@ -34,7 +34,7 @@
 //        ref_workload <scale> [edgefactor] --dump <prefix>
 //   --dump writes the two unscrambled draws as binary triples files
 //   <prefix>_A.bin / <prefix>_B.bin (int64 m, n, nnz, then nnz * (int64 row,
-//   int64 col, double val)) so the TPU bench can run the EXACT matrix the
+//   int64 col, double val)) so a bench can run the EXACT matrix the
 //   reference-workload family defines (same generator, same dedup).
 #include <cstdio>
 #include <cstdlib>

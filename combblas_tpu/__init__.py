@@ -1,6 +1,6 @@
-"""combblas_tpu — a TPU-native combinatorial-BLAS / GraphBLAS framework.
+"""combblas_tpu — a combinatorial-BLAS / GraphBLAS framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of CombBLAS
+A from-scratch JAX/XLA re-design of the capability surface of CombBLAS
 (reference: huanghua1994/CombBLAS-SpMM-test): semiring-parameterized sparse
 linear algebra (SpGEMM, SpMV/SpMSpV, SpMM, elementwise, reductions, indexing)
 over 2D/3D device meshes, plus the graph algorithms built on those primitives

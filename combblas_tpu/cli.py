@@ -317,6 +317,9 @@ def main(argv=None):
     p.set_defaults(fn=cmd_galerkin)
 
     args = ap.parse_args(argv)
+    from combblas_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

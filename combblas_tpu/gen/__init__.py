@@ -1,1 +1,1 @@
-"""Graph generators (R-MAT / Erdős–Rényi) — TPU-native, stateless PRNG."""
+"""Graph generators (R-MAT / Erdős–Rényi) — pure JAX, stateless PRNG."""

@@ -1,11 +1,11 @@
 """R-MAT (Kronecker) and Erdős–Rényi edge generators, pure JAX.
 
-TPU-native counterpart of the reference's vendored Graph500 generator
+Counterpart of the reference's vendored Graph500 generator
 (``RefGen21.h:88-323`` -> ``graph500-1.2/generator``: MRG splittable RNG +
 recursive quadrant descent + vertex scramble) and of
 ``DistEdgeList::GenGraph500Data`` (``DistEdgeList.cpp:223``).  Instead of a
 counter-splittable MRG stream we use JAX's threefry, which is the idiomatic
-stateless parallel RNG on TPU: every edge's quadrant path is generated in one
+stateless parallel RNG on an accelerator: every edge's quadrant path is generated in one
 (scale, nedges) batch of uniforms, fully on device, identical across runs for a
 given key.  The reference's ``RenameVertices`` scramble (``DistEdgeList.cpp:364``
 — load-balances the power-law degree tail across the process grid) becomes a

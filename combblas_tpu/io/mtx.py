@@ -2,7 +2,7 @@
 
 Counterpart of the reference's ``mmio.c`` + ``SpParMat::ParallelReadMM``
 (``SpParMat.cpp:3980``) / ``ParallelWriteMM`` (``SpParMat.cpp:4120``).  The
-reference splits the file into per-rank byte ranges with MPI-IO; on a TPU host
+reference splits the file into per-rank byte ranges with MPI-IO; on one host
 the file lives on one host filesystem, so reading is a host-side parse followed
 by device placement (and, for distributed matrices, a single sharded
 device_put — the 2D "shuffle" is a layout computation, not communication).

@@ -1,6 +1,6 @@
 """Connected components — FastSV (and the LACC-style star hooks).
 
-TPU-native counterpart of ``Applications/FastSV.h`` (grandparent shortcutting
+Counterpart of ``Applications/FastSV.h`` (grandparent shortcutting
 via ``SpMV<Select2ndMinSR>``, hooks at ``FastSV.h:347-365``, scatter ``Assign``
 at ``:133``) and the driver ``FastSV.cpp:70``.  The parent vector is a dense
 int32 array; one iteration is:

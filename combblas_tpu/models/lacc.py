@@ -1,6 +1,6 @@
 """LACC — linear-algebraic connected components (Awerbuch–Shiloach).
 
-TPU-native counterpart of ``Applications/CC.h`` (LACC, IPDPS'19):
+Counterpart of ``Applications/CC.h`` (LACC, IPDPS'19):
 ``StarCheck`` (``CC.h:1070,1126``), ``ConditionalHook`` (``:1195``),
 ``UnconditionalHook2`` (``:1243``), shortcutting, driver ``CC()``
 (``CC.h:1405``).  The parent vector is dense int32; every hook is a

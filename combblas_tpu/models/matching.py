@@ -1,13 +1,13 @@
 """Bipartite matchings — greedy maximal and augmenting-path maximum.
 
-TPU-native counterpart of ``Applications/BipartiteMatchings/``:
+Counterpart of ``Applications/BipartiteMatchings/``:
 ``BPMaximalMatching.h:24`` (greedy/Karp-Sipser maximal matching via
 SpMV-style propose/accept rounds) and ``BPMaximumMatching.cpp:207``
 (Hopcroft-Karp-style maximum matching: BFS forests from unmatched rows over
 alternating paths via ``SpMV``, then augmentation).
 
 Rows and columns of the (m, n) sparse matrix are the two vertex classes.
-Propose/accept rounds are segment-min reductions over the edge list (one VPU
+Propose/accept rounds are segment-min reductions over the edge list (one vector
 pass each).  The maximum-matching BFS phases are jitted; path augmentation
 walks the discovered parent pointers (host loop, path-length bounded — the
 reference's augment step is likewise a pointer walk, ``BPMaximumMatching.cpp``).

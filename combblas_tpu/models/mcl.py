@@ -1,6 +1,6 @@
 """MCL / HipMCL — Markov clustering via the expand–prune–inflate loop.
 
-TPU-native counterpart of ``Applications/MCL.cpp`` (``HipMCL`` at ``:515``:
+Counterpart of ``Applications/MCL.cpp`` (``HipMCL`` at ``:515``:
 ``while (chaos > EPS)`` of memory-efficient SpGEMM expansion ``:574``, column
 pruning ``MCLPruneRecoverySelect`` ``ParFriends.h:186``, ``Inflate`` ``:447``,
 ``MakeColStochastic`` ``:390``, ``Chaos`` ``:408``; cluster extraction
@@ -90,8 +90,8 @@ def _mcl_prune(a: SpCOO, p: MCLParams, out_capacity: int) -> SpCOO:
     yields per-column descending ranks; threshold/select/recover are then
     rank masks and the survivors compact once.  (The round-4 version
     chained prune -> kselect -> nnz-count -> kselect -> two masked merges
-    — six capacity-sized sorted passes over five dispatches; measured
-    93-196 s per MCL iteration at scale 14, vs one pass here.)"""
+    — six capacity-sized sorted passes over five dispatches, vs one pass
+    here.)"""
     return _mcl_prune_jit(
         a, cutoff=float(p.cutoff), select=int(p.select),
         recover_num=int(p.recover_num), recover_pct=float(p.recover_pct),
@@ -154,9 +154,10 @@ def mcl_local(
     Clusters are the connected components of the converged matrix's structure
     (``Interpret``, ``MCL.cpp:373``).
 
-    ``on_iter(it, chaos, secs)`` is called after every iteration (bench
-    hook); ``deadline`` is an absolute ``time.perf_counter()`` cutoff — the
-    loop stops early (labels still computed from the current matrix).
+    ``on_iter(it, chaos, secs, a)`` is called after every iteration with
+    the normalized iterate ``a`` (bench and smoke-test hook); ``deadline``
+    is an absolute ``time.perf_counter()`` cutoff — the loop stops early
+    (labels still computed from the current matrix).
     """
     import time as _time
     p = params or MCLParams()
@@ -168,7 +169,7 @@ def mcl_local(
     a = make_col_stochastic(a)
     cap = max(a.capacity, 1 << int(np.ceil(np.log2(max(min(p.select * n, n * n), 8)))))
     it = 0
-    # steady-state discipline (VERDICT r4): all capacities freeze after the
+    # steady-state discipline: all capacities freeze after the
     # first expansion — the spgemm plan dict pins the compiled pipeline, the
     # pruned matrix always carries `cap`, so iterations 3+ reuse compiled
     # steps exactly (iteration 1 sees the original capacity, iteration 2
@@ -188,7 +189,7 @@ def mcl_local(
         if verbose:
             print(f"mcl iter {it}: chaos={ch:.5f} nnz={int(a.nnz)}")
         if on_iter is not None:
-            on_iter(it, ch, _time.perf_counter() - t0)
+            on_iter(it, ch, _time.perf_counter() - t0, a)
         if ch < p.eps:
             break
         # never stop before iteration 3: the first two iterations carry

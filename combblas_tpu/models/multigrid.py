@@ -1,6 +1,6 @@
 """Algebraic-multigrid restriction: MIS-2 coarsening and Galerkin products.
 
-TPU-native counterpart of ``3DSpGEMM/RestrictionOp.h`` (MIS-2 at ``:118``,
+Counterpart of ``3DSpGEMM/RestrictionOp.h`` (MIS-2 at ``:118``,
 restriction triple product R·A·Rᵀ at ``:197``) and the Galerkin test drivers
 (``ReleaseTests/Galerkin.cpp``, ``GalerkinNew.cpp:105-112`` — S·A·Sᵀ with
 permutations).

@@ -5,7 +5,7 @@ The reference's ``TwitterEdge`` (``Applications/TwitterEdge.h:15``) carries
 (``FilteredBFS.cpp:129``) traverses only edges passing a time-window
 predicate; ``SemanticGraph.h`` is the generic wrapper.
 
-TPU design: attributes pack into the f32 value lanes of a standard
+Design: attributes pack into the f32 value lanes of a standard
 :class:`SpCOO` — (follower flag, retweet count, latest timestamp) become a
 single non-negative code, so the attributed graph IS a sparse matrix and
 every structural op (transpose, SpGEMM, SpRef, ...) applies unchanged.

@@ -1,6 +1,6 @@
 """SpCOO — the core local sparse-matrix format: capacity-padded coordinate triples.
 
-TPU-native replacement for the reference's sequential formats
+Replacement for the reference's sequential formats
 (``SpTuples.h:65-429`` COO, ``dcsc.h:46-135`` DCSC, ``csc.h:43`` CSC).  XLA
 requires static shapes, so instead of exactly-sized triple lists we keep a
 *capacity*-sized buffer with a traced ``nnz`` scalar; entries at index >= nnz
@@ -26,7 +26,8 @@ import numpy as np
 
 from combblas_tpu.semiring import PLUS_TIMES, Semiring
 
-__all__ = ["SpCOO", "sort_coo", "compress_sorted", "sort_compress_packed",
+__all__ = ["SpCOO", "sort_coo", "compress_sorted", "compress_sorted_masked",
+           "sort_compress_packed",
            "merge", "row_split", "row_concat", "find"]
 
 
@@ -234,7 +235,7 @@ def sort_coo(a: SpCOO) -> SpCOO:
     """Restore the (row, col) sorted invariant.
 
     Multi-operand lexicographic ``lax.sort`` — no 64-bit key packing needed, so
-    indices stay int32 (TPU-friendly).
+    indices stay int32 (the library runs without 64-bit mode).
     """
     row, col, val = jax.lax.sort((a.row, a.col, a.val), num_keys=2)
     return dataclasses.replace(a, row=row, col=col, val=val)
@@ -251,18 +252,33 @@ def compress_sorted(
 ) -> SpCOO:
     """Deduplicate a (row, col)-sorted triple stream with semiring addition.
 
-    The TPU-shaped equivalent of the reference's k-way merges
+    The data-parallel equivalent of the reference's k-way merges
     (``MultiwayMerge.h:412/537``) and of ``SpTuples`` duplicate folding: equal
     keys are adjacent after sorting, so duplicate folding is a flag + prefix-sum
-    + segment reduction — all VPU-parallel.  ``nvalid`` is the traced count of
+    + segment reduction.  ``nvalid`` is the traced count of
     real entries (the first ``nvalid`` positions; the rest must hold sentinels
     that sort last).  Output is a canonical :class:`SpCOO`.
     """
+    valid = jnp.arange(row.shape[0], dtype=jnp.int32) < nvalid
+    return compress_sorted_masked(row, col, val, valid, shape, sr=sr,
+                                  out_capacity=out_capacity)
+
+
+def compress_sorted_masked(
+    row: jax.Array,
+    col: jax.Array,
+    val: jax.Array,
+    valid: jax.Array,
+    shape: Tuple[int, int],
+    sr: Semiring = PLUS_TIMES,
+    out_capacity: int | None = None,
+) -> SpCOO:
+    """:func:`compress_sorted` for a stream whose real entries are marked by
+    the boolean ``valid`` instead of forming a prefix: the real entries,
+    read in order, must be (row, col)-sorted, and invalid entries may sit
+    anywhere between them (the padded row windows of the streamed SpGEMM)."""
     m, n = shape
-    cap = row.shape[0]
-    out_cap = cap if out_capacity is None else out_capacity
-    idx = jnp.arange(cap, dtype=jnp.int32)
-    valid = idx < nvalid
+    out_cap = row.shape[0] if out_capacity is None else out_capacity
     # Segment starts: first valid entry, or key change.
     prev_row = jnp.concatenate([jnp.full((1,), -1, jnp.int32), row[:-1]])
     prev_col = jnp.concatenate([jnp.full((1,), -1, jnp.int32), col[:-1]])
@@ -270,7 +286,7 @@ def compress_sorted(
     seg = jnp.cumsum(is_new.astype(jnp.int32)) - 1  # segment id per entry
     # clamp on overflow: callers detect truncation via nnz == out_capacity
     # and retry with a bigger buffer (spgemm_auto's estimate-and-retry)
-    nnz_out = jnp.minimum(jnp.maximum(seg[-1] + 1, 0) * (nvalid > 0), out_cap)
+    nnz_out = jnp.minimum(jnp.maximum(seg[-1] + 1, 0), out_cap)
     seg_sc = jnp.where(valid, seg, out_cap)  # padding scatters out of range
     if sr.add_kind == "sum":
         out_val = jax.ops.segment_sum(
@@ -364,10 +380,8 @@ def sort_compress_packed(
 ) -> SpCOO:
     """Sort a packed-key stream (key = i*(n+1) + j; padding keys must sort
     after every real key) and fold duplicates.  The packed back-end of
-    :func:`sort_compress`, exposed separately because the Pallas expansion
-    kernel emits packed keys directly.  All compression scatters carry
-    ``indices_are_sorted`` (a measured ~25% scatter win on TPU — segment ids
-    are sorted by construction)."""
+    :func:`sort_compress`.  All compression scatters carry
+    ``indices_are_sorted`` (segment ids are sorted by construction)."""
     m, n = shape
     stride = n + 1
     cap = key.shape[0]
@@ -430,7 +444,7 @@ def sort_compress(
     true for every distributed block and single-chip graphs to scale ~15 per
     dim pair), a single packed key replaces the two-key sort and the row/col
     scatters in compression collapse into one, cutting two full passes over
-    the stream (each pass is ~100ms/8M at measured TPU scatter rates)."""
+    the stream."""
     m, n = shape
     cap = i.shape[0]
     out_cap = cap if out_capacity is None else out_capacity

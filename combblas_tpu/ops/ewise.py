@@ -1,6 +1,6 @@
 """Elementwise sparse ops: Apply / Prune / EWiseApply / EWiseMult / DimApply.
 
-TPU-native counterparts of the reference's elementwise layer: ``SpParMat::Apply``
+Counterparts of the reference's elementwise layer: ``SpParMat::Apply``
 / ``Prune`` / ``PruneI`` / ``PruneColumn`` (``SpParMat.cpp:2567``), ``DimApply``
 (``SpParMat.cpp:801``), ``EWiseMult`` / ``SetDifference``
 (``SpParMat.cpp:2781-2817``) and the generalized ``EWiseApply``

@@ -1,19 +1,19 @@
 """Local SpMV / SpMSpV / SpMM kernels over semirings.
 
-TPU-native replacements for the reference's local matrix-vector family:
+Replacements for the reference's local matrix-vector family:
 ``Friends.h:64`` (``dcsc_gespmv`` dense-x SpMV), ``SpImpl.cpp:57-701``
 (SpMSpV kernels with SPA/bucket/heapsort accumulation) and the dense-output
 SpMM used by ``Applications/SpMMError.cpp`` / ``ReleaseTests/Roofline.cpp``.
 
-On TPU the natural formulation of all of these is gather + segment reduction
-over the COO triple stream — no per-column heaps, no SPAs: the entire matrix's
-products are formed in one vector pass and reduced with the semiring add.
-Sparse vectors are represented *densely* (value vector + validity mask), which
-is idiomatic for an HBM-bandwidth machine: the reference's elaborate sparse
-frontier machinery (``OptBuf.h``, ``BitMapFringe.h``) exists to avoid touching
-O(n) data per BFS step on a cache machine; at TPU bandwidths a masked dense
-vector is faster and compiles to regular code.  A true index-list SpVec type
-lives in :mod:`combblas_tpu.ops.spvec` for API parity.
+On a data-parallel device the natural formulation of all of these is gather +
+segment reduction over the COO triple stream — no per-column heaps, no SPAs:
+the entire matrix's products are formed in one vector pass and reduced with
+the semiring add.  Sparse vectors are represented *densely* (value vector +
+validity mask), which is idiomatic for a high-bandwidth memory: the
+reference's elaborate sparse frontier machinery (``OptBuf.h``,
+``BitMapFringe.h``) exists to avoid touching O(n) data per BFS step on a cache
+machine; here a masked dense vector compiles to regular code.  A true
+index-list SpVec type lives in :mod:`combblas_tpu.ops.spvec` for API parity.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def spmsv_masked(
     """Masked-dense SpMSpV: sparse vector as (values, bool mask).
 
     Returns (y_val, y_mask): y has an entry where at least one product with an
-    active x entry landed; inactive outputs hold sr.zero.  This is the TPU
+    active x entry landed; inactive outputs hold sr.zero.  This is the
     counterpart of the reference's SpMXSpV kernels (``SpImpl.cpp:345,390``) —
     the mask replaces the SPA bitmap.
     """
@@ -106,35 +106,11 @@ def spmsv_masked(
     return y, y_mask
 
 
-def spmm(a: SpCOO, x: jax.Array, sr: Semiring = PLUS_TIMES,
-         use_pallas: bool = False, prep=None) -> jax.Array:
+@functools.partial(jax.jit, static_argnames=("sr",))
+def spmm(a: SpCOO, x: jax.Array, sr: Semiring = PLUS_TIMES) -> jax.Array:
     """Sparse (m, n) × tall-dense (n, d) -> dense (m, d).
 
-    Default path: gather rows of X at a.col, scale by vals, segment-reduce
-    by row.  ``use_pallas=True`` routes plus_times float32 workloads
-    through the degree-sorted ELL-8 VMEM-resident kernel
-    (:func:`combblas_tpu.ops.pallas.spmm_ell.spmm_ell`) — the fast path
-    for the Roofline/SpMMError shapes.  The kernel path needs concrete
-    operands (host planning); pass ``prep`` from ``spmm_ell_prepare`` to
-    amortize planning, or call under jit to always take the XLA path.
-    """
-    from combblas_tpu.semiring import PLUS_TIMES as _PT
-
-    m, n = a.shape
-    dp = -(-max(x.shape[-1], 1) // 128) * 128
-    if (use_pallas and sr is _PT and x.ndim == 2
-            and jnp.issubdtype(x.dtype, jnp.floating)
-            and x.dtype != jnp.float64
-            and (m + n) * dp * 4 < 100 * 2**20
-            and not isinstance(jnp.asarray(a.nnz), jax.core.Tracer)):
-        from combblas_tpu.ops.pallas.spmm_ell import spmm_ell
-
-        return spmm_ell(a, x, prep=prep)
-    return _spmm_xla(a, x, sr)
-
-
-@functools.partial(jax.jit, static_argnames=("sr",))
-def _spmm_xla(a: SpCOO, x: jax.Array, sr: Semiring = PLUS_TIMES):
+    Gather rows of X at a.col, combine with vals, segment-reduce by row."""
     m, n = a.shape
     valid = a.mask()
     xg = x[jnp.minimum(a.col, n - 1)]  # (cap, d)

@@ -1,6 +1,6 @@
 """Distributed elementwise ops, reductions, transpose, and k-select.
 
-TPU-native counterparts of the remaining ``SpParMat`` method surface:
+Counterparts of the remaining ``SpParMat`` method surface:
 ``Apply``/``Prune``/``PruneI`` (``SpParMat.cpp:2567``), ``EWiseMult``/
 ``SetDifference`` (``:2781-2817``), ``DimApply`` (``:801``), ``Reduce``
 (``:888-961``), ``Transpose`` (``:3528``), ``Kselect1`` (``:1191``) and
@@ -362,7 +362,7 @@ def dist_kselect2_col(a: DistSpMat, k: jax.Array) -> jax.Array:
     """Per-column k-th largest by iterative value-space bisection — the
     Kselect2 counterpart (``SpParMat.cpp:130,309``: iterative median pruning
     with TopKGather).  The reference narrows candidates by shipping medians;
-    on TPU the same narrowing runs as 32 rounds of bisection on the
+    here the same narrowing runs as 32 rounds of bisection on the
     order-preserving uint32 image of the values: each round counts, per
     column, entries >= mid (one masked segment-sum + one psum along 'r') and
     halves the feasible interval.  Memory is O(ncols) per device — unlike

@@ -1,6 +1,6 @@
 """Distributed bipartite matchings on the 2D grid.
 
-TPU-native counterparts of ``Applications/BipartiteMatchings/``:
+Counterparts of ``Applications/BipartiteMatchings/``:
 
 - :func:`dist_bp_maximal` — greedy maximal matching
   (``BPMaximalMatching.h:24``): propose/accept rounds, each one blockwise

@@ -1,6 +1,6 @@
 """Memory-constrained distributed SpGEMM: staged SUMMA and phased (MCL) path.
 
-TPU-native counterparts of the reference's memory-bounded multiply family:
+Counterparts of the reference's memory-bounded multiply family:
 
 - :func:`summa_spgemm_staged` — the true analogue of ``Mult_AnXBn_Synch``
   (``ParFriends.h:1005``): one block-panel broadcast per stage (expressed as a
@@ -52,7 +52,6 @@ def _bcast(x, axis: str, src_index):
 def _staged_local(
     ar, ac, av, an, br, bc, bv, bn,
     *, sr, stage_flops_cap, out_capacity, mb, nb, kb_a, kb_b, stages,
-    impl="xla", chunk_cap=0, interpret=False,
 ):
     cap_a = ar.reshape(-1).shape[0]
     cap_b = br.reshape(-1).shape[0]
@@ -82,23 +81,12 @@ def _staged_local(
         )
         rp = jnp.minimum(rp, pbn)
         a_valid = jnp.arange(cap_a, dtype=jnp.int32) < pan
-        if impl == "xla":
-            i, j, v, total = expand_products(
-                par, pac, pav, a_valid, pbc, pbv, rp[:-1], rp[1:],
-                sr, stage_flops_cap, (mb, nb),
-            )
-            cs = sort_compress(i, j, v, total, (mb, nb), sr=sr,
-                               out_capacity=stage_flops_cap)
-        else:
-            from combblas_tpu.parallel.summa import _panel_multiply_pallas
-
-            cs = _panel_multiply_pallas(
-                par, pac, pav, a_valid, pbc, pbv, rp[:-1], rp[1:],
-                sr=sr, flops_cap=stage_flops_cap,
-                out_capacity=stage_flops_cap, mb=mb, nb=nb,
-                chunk_cap=chunk_cap, wide=(impl == "wide"),
-                interpret=interpret,
-            )
+        i, j, v, total = expand_products(
+            par, pac, pav, a_valid, pbc, pbv, rp[:-1], rp[1:],
+            sr, stage_flops_cap, (mb, nb),
+        )
+        cs = sort_compress(i, j, v, total, (mb, nb), sr=sr,
+                           out_capacity=stage_flops_cap)
         # incremental merge into the accumulator
         mrow = jnp.concatenate([acc_row, cs.row])
         mcol = jnp.concatenate([acc_col, cs.col])
@@ -123,8 +111,7 @@ def _staged_local(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("sr", "stage_flops_cap", "out_capacity",
-                              "impl", "chunk_cap", "interpret")
+    jax.jit, static_argnames=("sr", "stage_flops_cap", "out_capacity")
 )
 def summa_spgemm_staged(
     a: DistSpMat,
@@ -133,15 +120,9 @@ def summa_spgemm_staged(
     *,
     stage_flops_cap: int,
     out_capacity: int,
-    impl: str = "xla",
-    chunk_cap: int = 0,
-    interpret: bool = False,
 ) -> DistSpMat:
     """Stage-looped SUMMA with per-stage panel broadcasts and incremental
-    merge — bounded peak memory (``Mult_AnXBn_Synch`` semantics).
-    ``impl``/``chunk_cap`` select the per-stage local pipeline exactly as in
-    :func:`combblas_tpu.parallel.summa.summa_spgemm` (pick via
-    ``summa_impl_auto``/``summa_chunk_bound``)."""
+    merge — bounded peak memory (``Mult_AnXBn_Synch`` semantics)."""
     assert a.grid == b.grid and a.gshape[1] == b.gshape[0]
     grid = a.grid
     assert grid.pr == grid.pc, "SUMMA needs a square grid"
@@ -151,7 +132,6 @@ def summa_spgemm_staged(
         _staged_local,
         sr=sr, stage_flops_cap=stage_flops_cap, out_capacity=out_capacity,
         mb=mb, nb=nb, kb_a=kb_a, kb_b=kb_b, stages=grid.pc,
-        impl=impl, chunk_cap=chunk_cap, interpret=interpret,
     )
     crow, ccol, cval, cnnz = shard_map(
         fn,
@@ -238,8 +218,6 @@ def mem_efficient_spgemm(
     per_device_mem_bytes: float = 2e9,
     phase_hook: Callable[[DistSpMat], DistSpMat] | None = None,
     out_capacity: int | None = None,
-    impl: str | None = None,
-    interpret: bool = False,
 ) -> DistSpMat:
     """Phased SpGEMM over column slabs of B (``MemEfficientSpGEMM``,
     ``ParFriends.h:450``).  ``phase_hook`` is applied to each phase's slab
@@ -248,7 +226,6 @@ def mem_efficient_spgemm(
     loop; each phase is one jitted SUMMA."""
     from combblas_tpu.ops.spgemm import round_capacity_frac
     from combblas_tpu.parallel.elementwise import dist_add
-    from combblas_tpu.parallel.summa import summa_chunk_bound, summa_impl_auto
 
     grid = a.grid
     mb, nb = block_dims(b.gshape, grid)
@@ -268,8 +245,6 @@ def mem_efficient_spgemm(
     # one device pass sizes every phase's physical slab (ColSplit splits
     # storage; a phase's panel gather must move ~1/phases of B's bytes)
     counts = np.asarray(_col_slab_counts(b, jnp.asarray(bounds)))
-    if impl is None:
-        impl = summa_impl_auto(a, b)
     acc = None
     for p in range(phases):
         lo, hi = int(bounds[p]), int(bounds[p + 1])
@@ -279,10 +254,7 @@ def mem_efficient_spgemm(
             round_capacity_frac(max(int(counts[p].max()), 8)), b.capacity)
         bp = _col_slab(b, lo, hi, slab_cap)
         fc, oc = summa_bounds(a, bp)
-        chunk_cap = summa_chunk_bound(a, bp, fc) if impl != "xla" else 0
-        cp = summa_spgemm(a, bp, sr, flops_cap=fc, out_capacity=oc,
-                          impl=impl, chunk_cap=chunk_cap,
-                          interpret=interpret)
+        cp = summa_spgemm(a, bp, sr, flops_cap=fc, out_capacity=oc)
         if phase_hook is not None:
             cp = phase_hook(cp)
         acc = cp if acc is None else dist_add(

@@ -1,10 +1,10 @@
 """Distributed SpMV / SpMSpV over the 2D grid.
 
-TPU-native re-design of the reference's fan-out/fan-in vector pipeline
+Re-design of the reference's fan-out/fan-in vector pipeline
 (``ParFriends.h:1388-1881``: TransposeVector -> AllGatherVector(col world) ->
 LocalSpMV -> Alltoallv(row world) -> MergeContributions).  With vectors in the
 FullyDist layout (flat length-N array sharded ``P(('r','c'))``) the whole
-pipeline becomes three mesh operations, each of which XLA maps to a single ICI
+pipeline becomes three mesh operations, each of which XLA maps to a single
 collective:
 
   1. relayout to ``P(('c','r'))``      — the TransposeVector pair exchange
@@ -156,7 +156,7 @@ def dist_spmsv_masked(
         active = valid & m_blk[srcc]
         if edge_pred is not None:
             # late filtering (SemanticGraph / FilteredBFS.cpp:129): the edge
-            # predicate fuses into the traversal as one VPU compare per edge
+            # predicate fuses into the traversal as one vector compare per edge
             active = active & edge_pred(v)
         prod = sr.mul(v, x_blk[srcc])
         zero = sr.zero(prod.dtype)

@@ -1,6 +1,6 @@
 """Distributed dense/sparse vector machinery: sort, RandPerm, routing, Uniq.
 
-TPU-native counterpart of the reference's distributed vector layer:
+Counterpart of the reference's distributed vector layer:
 
 - ``FullyDistVec::RandPerm`` (``FullyDistVec.cpp``) — random permutation by
   sorting random keys, here threefry keys + :func:`dist_sort`.

@@ -1,13 +1,13 @@
 """Semiring algebra for sparse operations.
 
-TPU-native redesign of the reference's semiring layer
+Redesign of the reference's semiring layer
 (``include/CombBLAS/Semirings.h:51-259`` and ``Operations.h:46-286``): instead of
 C++ functors bound to MPI_Op handles, a semiring here is a small frozen dataclass
 whose *additive* operation is restricted to one of the three reduction kinds XLA
 can execute as segment reductions and mesh collectives (``sum``/``min``/``max``),
 and whose *multiplicative* operation is an arbitrary elementwise jnp-traceable
 callable.  That restriction is what lets every distributed reduce ride
-``jax.lax.psum``/``pmin``/``pmax`` over ICI with no user-defined-op machinery
+``jax.lax.psum``/``pmin``/``pmax`` over the mesh with no user-defined-op machinery
 (the reference needs an ``MPIOp`` cache, ``MPIOp.h:67-109``; we need nothing).
 
 Semirings are hashable and compare by name, so they can be passed as static jit

@@ -1,12 +1,12 @@
 """Phase timers and profiling helpers.
 
-TPU-native counterpart of the reference's global phase timers
+Counterpart of the reference's global phase timers
 (``cblas_alltoalltime``/``cblas_allgathertime``/``cblas_localspmvtime``/... —
 ``CombBLAS.h:76-102``, accumulated under ``#ifdef TIMING`` in
 ``ParFriends.h:1747-1879``) and its per-run comm/comp breakdowns
 (``3DSpGEMM/Multiplier.h:50-58``).
 
-On TPU, fine-grained phase attribution inside one jitted program belongs to
+On the device, fine-grained phase attribution inside one jitted program belongs to
 the XLA profiler (wrap a region with :func:`trace` and inspect in xprof); the
 wall-clock :class:`PhaseTimers` covers the host-driven loops (MCL iterations,
 BFS levels when run unjitted, I/O) the same way the reference's counters do.

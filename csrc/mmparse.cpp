@@ -1,6 +1,6 @@
 // Fast parallel Matrix Market parser — native host-side I/O path.
 //
-// TPU-native counterpart of the reference's mmio.c + the byte-range-splitting
+// Counterpart of the reference's mmio.c + the byte-range-splitting
 // parallel read of SpParMat::ParallelReadMM (SpParMat.cpp:3980): the file is
 // mmap'd, the body is split at newline boundaries into one chunk per hardware
 // thread, and each thread parses its range with a hand-rolled integer/float

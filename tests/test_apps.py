@@ -187,7 +187,7 @@ def test_bfs_dir_opt_dist_ring():
 
 
 def test_bfs_push_matches_while_loop():
-    """Push BFS (Pallas frontier expansion) levels match the while_loop BFS
+    """Push BFS (frontier expansion) levels match the while_loop BFS
     and validate Graph500-style (MultTest-style cross-implementation
     equivalence, ``TopDownBFS.cpp:448-457``)."""
     import jax
@@ -202,7 +202,7 @@ def test_bfs_push_matches_while_loop():
     a = rmat_matrix(jax.random.PRNGKey(9), scale=10, edgefactor=8,
                     symmetrize=True, remove_self_loops=True)
     p1, l1 = bfs_local(a, 3)
-    p2, l2 = bfs_push_local(a, 3, interpret=True)
+    p2, l2 = bfs_push_local(a, 3)
     l1, l2 = np.asarray(l1), np.asarray(l2)
     assert (l1 == l2).all()
     assert validate_bfs(a.to_dense(), 3, np.asarray(p2), l2)
@@ -233,8 +233,8 @@ def test_bfs_batch_pull_matches_while_loop():
 
 
 def test_bfs_push_small_graph():
-    """Regression (ADVICE r4): push BFS crashed on graphs with n < 1024
-    because the frontier cap was floored at 1024 > n."""
+    """Regression: push BFS crashed on graphs with n < 1024 because the
+    frontier cap was floored at 1024 > n."""
     import numpy as np
     from combblas_tpu.models.bfs import bfs_push_local, validate_bfs
     from combblas_tpu.ops.coo import SpCOO
@@ -244,31 +244,25 @@ def test_bfs_push_small_graph():
     for i in range(n - 1):
         d[i, i + 1] = d[i + 1, i] = 1.0
     a = SpCOO.from_dense(d)
-    p, l = bfs_push_local(a, 0, interpret=True)
+    p, l = bfs_push_local(a, 0)
     l = np.asarray(l)
     assert (l == np.arange(n)).all()
     assert validate_bfs(d, 0, np.asarray(p), l)
 
 
-def test_bfs_batch_pull_big_matches_while_loop():
-    """Blocked-kernel 64-root-capable BFS: levels match the while_loop BFS,
-    parents Graph500-validate (original-id value space)."""
-    import jax
+def test_bfs_push_isolated_root():
+    """A root with no edges: one level with an empty expansion stream, the
+    root alone visited."""
     import numpy as np
-    from combblas_tpu.gen.rmat import rmat_matrix
-    from combblas_tpu.models.bfs import (
-        bfs_batch_pull_big,
-        bfs_local,
-        validate_bfs,
-    )
+    from combblas_tpu.models.bfs import bfs_push_local
+    from combblas_tpu.ops.coo import SpCOO
 
-    a = rmat_matrix(jax.random.PRNGKey(9), scale=9, edgefactor=8,
-                    symmetrize=True, remove_self_loops=True)
-    roots = [3, 17, 101, 250]
-    P, L = bfs_batch_pull_big(a, roots, nb=3, interpret=True)
-    P, L = np.asarray(P), np.asarray(L)
-    ad = np.asarray(a.to_dense())
-    for i, r in enumerate(roots):
-        _, l1 = bfs_local(a, r)
-        assert (np.asarray(l1) == L[i]).all()
-        assert validate_bfs(ad, r, P[i], L[i])
+    n = 10
+    d = np.zeros((n, n), np.float32)
+    for i in range(1, n - 1):
+        d[i, i + 1] = d[i + 1, i] = 1.0
+    p, l = bfs_push_local(SpCOO.from_dense(d), 0)
+    expect = np.full(n, -1)
+    expect[0] = 0
+    np.testing.assert_array_equal(np.asarray(l), expect)
+    np.testing.assert_array_equal(np.asarray(p), expect)

@@ -1,12 +1,9 @@
 """bench.py delivery-contract smoke test.
 
-Round 2 shipped a bench.py whose first JSON line rode AFTER a ~10-minute
-headline, so the driver's timeout recorded nothing (`BENCH_r02.json:
-parsed null`).  This test pins the contract: ``python bench.py --smoke``
-must emit a parseable first JSON line within 300 s on CPU (cold CPU
-compiles are ~115 s; warm-cache runs are seconds).  The real run
-prints the same fast lines first and only then attempts the budgeted
-scale-22 headline (``bench.py:main``).
+``python bench.py --smoke`` must emit a parseable first JSON line, naming
+the device it ran on, within 300 s on the CPU when the CPU is asked for
+explicitly.  The real run prints the same fast lines first and only then
+attempts the budgeted scale-22 headline (``bench.py:main``).
 """
 
 import json
@@ -30,4 +27,6 @@ def test_bench_first_line_fast():
     first = json.loads(lines[0])
     assert first["unit"] == "Mproducts/s"
     assert first["value"] > 0
-    assert "vs_baseline" in first
+    assert first["platform"] == "cpu"
+    assert first["device_count"] == 1
+    assert first["device_kind"]

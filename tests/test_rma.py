@@ -1,8 +1,5 @@
-"""One-sided (Cannon ring RDMA) SUMMA vs the all-gather SUMMA and dense.
-
-Remote DMAs run under the Pallas interpreter on the virtual CPU mesh — the
-same code compiles to ICI RDMA on a real slice.
-"""
+"""One-sided (Cannon ring, ppermute hops) SUMMA vs the all-gather SUMMA and
+dense."""
 import jax
 import numpy as np
 import pytest
@@ -27,8 +24,7 @@ def test_rma_summa_vs_dense():
     a = DistSpMat.from_local(SpCOO.from_dense(ad), g)
     b = DistSpMat.from_local(SpCOO.from_dense(bd), g)
     fc, oc = summa_bounds(a, b)
-    c = summa_spgemm_rma(a, b, stage_flops_cap=fc, out_capacity=oc,
-                         interpret=True)
+    c = summa_spgemm_rma(a, b, stage_flops_cap=fc, out_capacity=oc)
     np.testing.assert_allclose(c.to_dense(), ad @ bd, rtol=1e-5, atol=1e-6)
 
 
@@ -40,33 +36,6 @@ def test_rma_summa_matches_allgather_minplus():
     b = DistSpMat.from_local(SpCOO.from_dense(bd), g)
     fc, oc = summa_bounds(a, b)
     c1 = summa_spgemm_rma(a, b, MIN_PLUS, stage_flops_cap=fc,
-                          out_capacity=oc, interpret=True)
+                          out_capacity=oc)
     c2 = summa_spgemm(a, b, MIN_PLUS, flops_cap=fc, out_capacity=oc)
     np.testing.assert_allclose(c1.to_dense(), c2.to_dense(), rtol=1e-6)
-
-
-def test_ring_shift_kernel_single_axis_interpret():
-    """The Pallas RDMA one-hop push itself, on a 1-axis mesh (the only mesh
-    form the interpreter can emulate remote DMAs on)."""
-    import functools
-
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from combblas_tpu.parallel.rma import _ring_shift_kernel
-
-    mesh = jax.make_mesh((8,), ("x",))
-    shift = _ring_shift_kernel(8, jnp.float32, "x", collective_id=3)
-
-    @functools.partial(jax.shard_map, mesh=mesh, in_specs=P("x"),
-                       out_specs=P("x"), check_vma=False)
-    def step(x):
-        return shift(x, interpret=True)
-
-    x = jnp.arange(64 * 128, dtype=jnp.float32).reshape(64, 128)
-    y = np.asarray(step(x))
-    xs = np.asarray(x)
-    for d in range(8):
-        src = (d - 1) % 8
-        np.testing.assert_array_equal(y[8 * d: 8 * d + 8],
-                                      xs[8 * src: 8 * src + 8])

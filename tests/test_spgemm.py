@@ -104,35 +104,24 @@ def test_empty_operand():
 
 
 def test_sevenvertex_square():
-    """Known-answer check on the reference's in-repo test matrix
-    (ReleaseTests/sevenvertex.mtx)."""
+    """Known-answer check on a small Matrix Market graph in the repo
+    (tests/data/sevenvertex.mtx), against numpy on the file's triples."""
+    import os
+
     from combblas_tpu.io.mtx import read_mtx
 
-    a = read_mtx("/root/reference/ReleaseTests/sevenvertex.mtx")
-    d = np.asarray(a.to_dense())
+    path = os.path.join(os.path.dirname(__file__), "data", "sevenvertex.mtx")
+    t = np.loadtxt(path, comments="%", skiprows=3)
+    d = np.zeros((7, 7))
+    d[t[:, 0].astype(int) - 1, t[:, 1].astype(int) - 1] = t[:, 2]
+    a = read_mtx(path)
     c = spgemm_auto(a, a)
     np.testing.assert_allclose(np.asarray(c.to_dense()), d @ d, rtol=1e-5, atol=1e-6)
-
-
-def test_spgemm_dense_fallback():
-    from combblas_tpu.ops.spgemm import spgemm_dense
-
-    da = rand_sparse(14, 10, 0.5, seed=19)
-    db = rand_sparse(10, 12, 0.5, seed=20)
-    a, b = SpCOO.from_dense(da), SpCOO.from_dense(db)
-    c = spgemm_dense(a, b, out_capacity=256)
-    np.testing.assert_allclose(np.asarray(c.to_dense()), da @ db, rtol=1e-5,
-                               atol=1e-6)
-    cm = spgemm_dense(a, b, MIN_PLUS, out_capacity=256)
-    from tests.test_spgemm import dense_semiring_matmul
-
-    expect = dense_semiring_matmul(da, db, "min_plus")
-    np.testing.assert_allclose(np.asarray(cm.to_dense()), expect, rtol=1e-5,
-                               atol=1e-6)
+    assert int(c.nnz) == int(((d @ d) != 0).sum())
 
 
 def test_sort_limit_guard():
-    """Library-enforced 2^31 sort bound (VERDICT r4 item 7): a single-sort
+    """Library-enforced 2^31 sort bound: a single-sort
     shape past the limit raises the named error at plan/trace time, and
     spgemm_auto auto-slabs instead of ever building such a sort."""
     import pytest as _pytest

@@ -1,18 +1,16 @@
-"""Segmented (row-classed) ESC pipeline — digest correctness against dense
-references and the flat streamed path, interpret mode on the CPU mesh.
+"""Sorted-row streamed ESC pipeline (seg2) — digest correctness against
+dense references and the materialized SpGEMM, on the CPU mesh.
 
 Mirrors the reference's cross-implementation equivalence testing style
 (``MultTest.cpp:120-230``: every new execution variant is checked against
 an independently computed product)."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from combblas_tpu.ops.coo import SpCOO
-from combblas_tpu.ops.spgemm import spgemm_pallas_streamed
-from combblas_tpu.ops.spgemm_seg import seg_plan, spgemm_streamed_seg
+from combblas_tpu.ops.spgemm import spgemm_auto
+from combblas_tpu.ops.spgemm_seg import seg2_plan, spgemm_streamed_seg2
 from combblas_tpu.semiring import PLUS_TIMES
 
 
@@ -22,87 +20,107 @@ def _rand(m, k, density, seed):
     return d.astype(np.float32)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("density", [0.04, 0.15])
-def test_seg_digest_matches_dense(seed, density):
-    m, k, n = 96, 80, 64
-    ad = _rand(m, k, density, seed)
-    bd = _rand(k, n, density, seed + 10)
-    a = SpCOO.from_dense(ad)
-    b = SpCOO.from_dense(bd)
-    nnz, cks, trunc = spgemm_streamed_seg(a, b, PLUS_TIMES, num_slabs=3,
-                                          interpret=True)
-    ref = ad.astype(np.float64) @ bd.astype(np.float64)
-    assert not bool(trunc)
-    assert nnz == int((ref != 0).sum())
-    np.testing.assert_allclose(cks, ref.sum(), rtol=1e-4)
-
-
-def test_seg_matches_flat_streamed_skewed():
+def _skewed(seed, m=200):
     # power-law-ish skew: a few hub rows with large windows, many tiny rows
-    rng = np.random.default_rng(7)
-    m = k = n = 200
+    rng = np.random.default_rng(seed)
+    k = n = m
     ad = np.zeros((m, k), np.float32)
     for i in range(m):
         deg = min(int(rng.pareto(0.7) + 1), k)
         cols = rng.choice(k, size=deg, replace=False)
         ad[i, cols] = rng.random(deg).astype(np.float32) + 0.1
     bd = (rng.random((k, n)) < 0.2).astype(np.float32) * 0.5
+    return ad, bd
+
+
+@pytest.mark.parametrize("flops_cap", [1 << 12, 1 << 13])
+def test_seg2_skewed_matches_spgemm(flops_cap):
+    """Skewed rows (hub windows and many flat rows) digest to the
+    materialized product's (nnz, value-sum)."""
+    ad, bd = _skewed(7)
     a = SpCOO.from_dense(ad)
     b = SpCOO.from_dense(bd)
-    nnz_s, cks_s, tr_s = spgemm_streamed_seg(a, b, PLUS_TIMES, num_slabs=4,
-                                             interpret=True)
-    nnz_f, cks_f, tr_f = spgemm_pallas_streamed(a, b, PLUS_TIMES,
-                                                num_slabs=4, wide=True,
-                                                interpret=True)
-    assert not bool(tr_s) and not bool(tr_f)
-    assert nnz_s == nnz_f
-    np.testing.assert_allclose(float(cks_s), float(cks_f), rtol=1e-5)
+    nnz_2, cks_2, tr_2 = spgemm_streamed_seg2(
+        a, b, PLUS_TIMES, flops_cap=flops_cap, pad_cap=1 << 16)
+    c = spgemm_auto(a, b)
+    nnz_c = int(c.nnz)
+    assert not bool(tr_2)
+    assert nnz_2 == nnz_c
+    np.testing.assert_allclose(float(cks_2),
+                               float(np.asarray(c.val)[:nnz_c].sum()),
+                               rtol=1e-5)
 
 
-def test_seg_plan_caps_cover_every_slab_row():
-    # the plan's class capacities must fit the realized per-slab row counts
-    rng = np.random.default_rng(3)
-    m = k = 150
-    ad = (rng.random((m, k)) < 0.08).astype(np.float32)
-    a = SpCOO.from_dense(ad)
-    plan = seg_plan(a, a, 5)
-    bounds = np.asarray(plan["bounds"])
-    classes = plan["classes"]
-    s_caps = plan["s_caps"]
-    deg = np.asarray(jnp.bincount(jnp.asarray(a.row)[: int(a.nnz)],
-                                  length=m))
-    col = np.asarray(a.col)[: int(a.nnz)]
-    rowfl = np.bincount(np.asarray(a.row)[: int(a.nnz)],
-                        weights=deg[col].astype(np.float64),
-                        minlength=m)
-    nz = rowfl > 0
-    # classes are half-octave widths; a row's window must STRICTLY exceed
-    # its flops (the trailing-sentinel guarantee)
-    widths = np.asarray(classes)
-    assert np.all(np.diff(widths) > 0)
-    assert widths[-1] > rowfl.max()
-    cls = np.searchsorted(widths, rowfl, side="right")
-    for s in range(len(bounds) - 1):
-        lo, hi = bounds[s], bounds[s + 1]
-        for i, w in enumerate(classes):
-            cnt = int(((cls[lo:hi] == i) & nz[lo:hi]).sum())
-            assert cnt <= s_caps[i], (s, w, cnt, s_caps[i])
-            sel = (cls[lo:hi] == i) & nz[lo:hi]
-            if sel.any():
-                assert rowfl[lo:hi][sel].max() < w
-
-
-def test_seg_single_slab_tiny():
+def test_seg2_single_slab_tiny():
     ad = np.array([[1.0, 2.0, 0.0], [0.0, 3.0, 4.0], [5.0, 0.0, 6.0]],
                   np.float32)
     a = SpCOO.from_dense(ad)
-    nnz, cks, trunc = spgemm_streamed_seg(a, a, PLUS_TIMES, num_slabs=1,
-                                          interpret=True)
+    nnz, cks, trunc = spgemm_streamed_seg2(a, a, PLUS_TIMES)
     ref = ad @ ad
     assert nnz == int((ref != 0).sum())
     np.testing.assert_allclose(cks, ref.sum(), rtol=1e-5)
     assert not bool(trunc)
+
+
+def test_seg2_rows_at_ladder_widths():
+    """Rows whose product counts equal ladder candidates (512 and 1024)
+    get a strictly wider window, so every window keeps a trailing
+    sentinel, and the digest stays exact."""
+    k = n = 2048
+    rng = np.random.default_rng(4)
+    bd = np.zeros((k, n), np.float32)
+    for r in range(16):  # B rows 0..15 hold 128 entries each
+        bd[r, rng.choice(n, 128, replace=False)] = 1.0
+    ad = np.zeros((40, k), np.float32)
+    ad[0, :8] = 1.0     # 8 x 128 = 1024 products
+    ad[1, 8:12] = 2.0   # 4 x 128 = 512 products
+    ad[np.arange(2, 40), 16 + np.arange(38)] = 1.0  # B rows without entries
+    ad[5:, 12] = 0.5    # 128 products each (flat rows)
+    a = SpCOO.from_dense(ad)
+    b = SpCOO.from_dense(bd)
+    a2, cfg = seg2_plan(a, b, flops_cap=1 << 12, pad_cap=1 << 15)
+    fl = np.sort((ad != 0).astype(np.int64) @ (bd != 0).sum(axis=1))[::-1]
+    for s, sl in enumerate(cfg["slabs"]):
+        if not sl["flat"]:
+            assert sl["w"] > fl[cfg["bounds"][s]]
+    assert not cfg["slabs"][0]["flat"] and cfg["slabs"][0]["w"] > 1024
+    nnz, cks, trunc = spgemm_streamed_seg2(a, b, PLUS_TIMES,
+                                           flops_cap=1 << 12,
+                                           pad_cap=1 << 15)
+    ref = ad.astype(np.float64) @ bd
+    assert not bool(trunc)
+    assert nnz == int((ref != 0).sum())
+    np.testing.assert_allclose(cks, ref.sum(), rtol=1e-5)
+
+
+def test_seg2_flat_slab_beyond_packed_key_range():
+    """A flat slab whose (rows+1)*(n+1) exceeds 2^31 — no packed int32 key
+    could hold it — digests exactly through the two-key sort."""
+    rng = np.random.default_rng(9)
+    m = k = 64
+    n = 1 << 28
+    arow = np.repeat(np.arange(m), 3)
+    acol = rng.integers(0, k, len(arow))
+    brow = np.repeat(np.arange(k), 4)
+    bcol = rng.integers(0, n, len(brow))
+    bcol[::4] = 17  # shared columns make duplicates across products
+    a = SpCOO.from_arrays(arow, acol, np.ones(len(arow)), (m, k))
+    b = SpCOO.from_arrays(brow, bcol, np.full(len(brow), 0.5), (k, n))
+    a2, cfg = seg2_plan(a, b)
+    assert all(sl["flat"] for sl in cfg["slabs"])
+    assert (cfg["slabs"][0]["s_pad"] + 1) * (n + 1) > 2 ** 31
+    nnz, cks, trunc = spgemm_streamed_seg2(a, b, PLUS_TIMES)
+    ar, ac, av = (np.asarray(x)[: int(a.nnz)] for x in (a.row, a.col, a.val))
+    br, bc, bv = (np.asarray(x)[: int(b.nnz)] for x in (b.row, b.col, b.val))
+    keys, prods = [], []
+    for i, kk, va in zip(ar, ac, av):
+        sel = br == kk
+        keys.append(i.astype(np.int64) * n + bc[sel])
+        prods.append(va * bv[sel])
+    keys = np.concatenate(keys)
+    assert not bool(trunc)
+    assert nnz == len(np.unique(keys))
+    np.testing.assert_allclose(cks, np.concatenate(prods).sum(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -117,35 +135,11 @@ def test_seg2_digest_matches_dense(seed, density):
     b = SpCOO.from_dense(bd)
     # tiny budgets force several slabs + at least one mid-class cut
     nnz, cks, trunc = spgemm_streamed_seg2(
-        a, b, PLUS_TIMES, flops_cap=1 << 12, pad_cap=1 << 16,
-        interpret=True)
+        a, b, PLUS_TIMES, flops_cap=1 << 12, pad_cap=1 << 16)
     ref = ad.astype(np.float64) @ bd.astype(np.float64)
     assert not bool(trunc)
     assert nnz == int((ref != 0).sum())
     np.testing.assert_allclose(cks, ref.sum(), rtol=1e-4)
-
-
-def test_seg2_matches_seg_skewed():
-    from combblas_tpu.ops.spgemm_seg import spgemm_streamed_seg2
-
-    rng = np.random.default_rng(7)
-    m = k = n = 200
-    ad = np.zeros((m, k), np.float32)
-    for i in range(m):
-        deg = min(int(rng.pareto(0.7) + 1), k)
-        cols = rng.choice(k, size=deg, replace=False)
-        ad[i, cols] = rng.random(deg).astype(np.float32) + 0.1
-    bd = (rng.random((k, n)) < 0.2).astype(np.float32) * 0.5
-    a = SpCOO.from_dense(ad)
-    b = SpCOO.from_dense(bd)
-    nnz_s, cks_s, tr_s = spgemm_streamed_seg(a, b, PLUS_TIMES, num_slabs=4,
-                                             interpret=True)
-    nnz_2, cks_2, tr_2 = spgemm_streamed_seg2(
-        a, b, PLUS_TIMES, flops_cap=1 << 13, pad_cap=1 << 16,
-        interpret=True)
-    assert not bool(tr_s) and not bool(tr_2)
-    assert nnz_2 == nnz_s
-    np.testing.assert_allclose(float(cks_2), float(cks_s), rtol=1e-5)
 
 
 @pytest.mark.parametrize("max_widths", [1, 3, 8])
@@ -166,7 +160,7 @@ def test_seg2_max_widths_ladders_agree(max_widths):
     b = SpCOO.from_dense(bd)
     nnz, cks, trunc = spgemm_streamed_seg2(
         a, b, PLUS_TIMES, flops_cap=1 << 12, pad_cap=1 << 16,
-        max_widths=max_widths, interpret=True)
+        max_widths=max_widths)
     ref = ad.astype(np.float64) @ bd.astype(np.float64)
     assert not bool(trunc)
     assert nnz == int((ref != 0).sum())
@@ -174,10 +168,9 @@ def test_seg2_max_widths_ladders_agree(max_widths):
 
 
 def test_seg2_flat_slab_flops_clamped():
-    """Flat (wide-key) slabs are cut at <= 2^27 products regardless of
-    flops_cap: the wide digest step's HLO temps are ~71 B/stream element,
-    so an unclamped 2^28 stream compiles to a 19 GB program (HBM OOM on a
-    16 GB chip; measured at scale 24)."""
+    """Flat (two-key) slabs are cut at <= 2^27 products regardless of
+    flops_cap: the two-key digest step holds more temporaries per product
+    than the window step, and the clamp keeps it within a 16 GB device."""
     from combblas_tpu.ops.spgemm_seg import seg2_plan
 
     rng = np.random.default_rng(5)
@@ -193,7 +186,7 @@ def test_seg2_flat_slab_flops_clamped():
     assert all(sl["flat"] for sl in cfg["slabs"])
     for sl in cfg["slabs"]:
         assert sl["flops"] <= (1 << 27)
-        assert sl["flat_stream_cap"] <= (1 << 27) + 32768 + 18 * 128
+        assert sl["flat_stream_cap"] <= (1 << 27) + 32768
 
 
 def test_seg2_plan_invariants():
@@ -218,8 +211,8 @@ def test_seg2_plan_invariants():
         lo, hi = int(bounds[i]), int(bounds[i + 1])
         assert sl["cnt"] == hi - lo
         assert sl["s_pad"] >= sl["cnt"]
-        # class buffers are whole compress tiles; flat slabs have no
-        # window buffer (they sort the raw stream, tiled by
+        # window buffers are whole 32768-element blocks; flat slabs have
+        # no window buffer (they sort the raw stream, sized by
         # flat_stream_cap which is itself 32768-granular)
         assert sl["flat"] or (sl["s_pad"] * sl["w"]) % 32768 == 0
         if sl["flat"]:

@@ -56,8 +56,27 @@ def test_spmsv_masked_frontier():
             assert not ym[j]
 
 
-def test_spmm_vs_dense():
-    d = rand_sparse(16, 12, 0.4, seed=27)
-    x = np.random.default_rng(28).random((12, 8)).astype(np.float32)
-    y = spmm(SpCOO.from_dense(d), jnp.asarray(x))
-    np.testing.assert_allclose(np.asarray(y), d @ x, rtol=1e-4, atol=1e-5)
+def _spmm_case(name):
+    rng = np.random.default_rng(1)
+    if name in ("small", "small_b"):
+        seed = 27 if name == "small" else 120
+        return rand_sparse(16, 12, 0.4, seed=seed), rng.random((12, 8))
+    if name == "empty":
+        return np.zeros((6, 5)), np.ones((5, 4))
+    m = 300 if name == "hub_row" else 301
+    n, d = 257, (128 if name == "hub_row" else 8)
+    ad = (rng.random((m, n)) < 0.05) * rng.random((m, n))
+    ad[7] = (rng.random(n) < 0.6) * 1.0  # heavy row
+    ad[8] = 0                            # empty row
+    return ad, rng.random((n, d))
+
+
+@pytest.mark.parametrize(
+    "name", ["small", "small_b", "empty", "hub_row", "narrow_d"])
+def test_spmm_vs_dense(name):
+    ad, x = _spmm_case(name)
+    ad = ad.astype(np.float32)
+    x = x.astype(np.float32)
+    a = SpCOO.from_dense(ad) if ad.any() else SpCOO.empty(ad.shape)
+    y = spmm(a, jnp.asarray(x))
+    np.testing.assert_allclose(np.asarray(y), ad @ x, rtol=1e-4, atol=1e-5)
